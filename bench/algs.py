@@ -4,9 +4,9 @@ jumping}.rs), as instrumented NumPy/Python reference implementations.
 
 These exist for the same reason the reference keeps them: to document and
 sanity-check the algorithm space (comparisons per element, output
-equivalence), not to be fast. The production TPU kernel uses the
-block-prefix/suffix formulation of Split (two-stacks); see
-simd_minimizers_tpu/ops/fused.py.
+equivalence), not to be fast. The production pipeline uses a
+sparse-table doubling form of the sliding minimum; see
+simd_minimizers_tpu/ops/layout.py (window_min_cols_packed).
 
 Problems (reference bench/src/minimizer.rs:11-37):
   A: deduplicated minimizer positions of all windows

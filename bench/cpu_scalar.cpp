@@ -6,8 +6,8 @@
 // numbers are carried from the reference's committed results. This file
 // provides the missing *measured-on-this-host* analog: a single-core
 // scalar C++ implementation of the exact framework semantics
-// (ops/oracle.py is the contract), timed on the same machine that the
-// TPU numbers are measured from.
+// (ops/oracle.py is the contract), timed on the host of the accelerator
+// whose numbers are measured.
 //
 // Semantics (bit-identical to ops/oracle.py, differential-tested by
 // tests/test_cpu_scalar.py):

@@ -1,5 +1,7 @@
 """Two-process multi-host sketch demo (BASELINE config 5 on one machine).
 
+A CPU demo: both processes are pinned to the CPU, so they never contend
+for a GPU (a JAX process reserves most of a card's memory when it starts).
 Spawns 2 JAX processes (4 virtual CPU devices each) that call
 `multihost_sketch` identically; each sketches its genome shard on its
 local mesh, shards all-gather over the distributed runtime, and both

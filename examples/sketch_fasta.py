@@ -4,8 +4,9 @@
         --out sketch.npz [--values] [--syncmers closed|open] [--skip-ambiguous]
 
 Parses the FASTA with the native C++ scanner, sketches every record on
-the TPU (fused kernel; records > 2^30 chars stream through spans), and
-writes positions (+ optional u64 values) per record to an .npz.
+the GPU (the XLA pipeline; long records stream in chunks, many small ones
+share batch launches), and writes positions (+ optional u64 values) per
+record to an .npz.
 """
 
 from __future__ import annotations
@@ -36,19 +37,6 @@ def main():
     from simd_minimizers_tpu.hashers import NtHasher
     from simd_minimizers_tpu.ops import backend, pipeline, values
     from simd_minimizers_tpu.seq.fasta import read_fasta
-    from simd_minimizers_tpu.utils.device import acquire_devices_or_exit
-
-    # persistent compilation cache: repeat CLI runs skip the multi-minute
-    # first Mosaic compile (jit caches alone are per-process only)
-    import jax
-
-    from simd_minimizers_tpu import cache_dir
-
-    jax.config.update("jax_compilation_cache_dir", cache_dir("jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-
-    acquire_devices_or_exit(
-        float(os.environ.get("SMTPU_DEVICE_TIMEOUT_S", "900")))
 
     mode = {None: pipeline.MODE_MINIMIZERS,
             "closed": pipeline.MODE_CLOSED_SYNCMERS,
@@ -63,12 +51,9 @@ def main():
 
     out = {}
     total_pos = 0
-    # all records ride ONE depth-2 launch pipeline (pack + transfer of the
-    # next record overlaps device compute of the current one); dna=True:
-    # the native FASTA scanner guarantees 2-bit codes, no O(n) host probe
     amb = ([r.ambiguous for r in recs] if args.skip_ambiguous else None)
     all_pos = backend.sketch_records([r.codes for r in recs], args.k, args.w,
-                                     h, mode=mode, ambiguous=amb, dna=True)
+                                     h, mode=mode, ambiguous=amb)
     for rec, pos in zip(recs, all_pos):
         out[f"{rec.name}/positions"] = pos
         total_pos += pos.size

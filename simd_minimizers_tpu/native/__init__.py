@@ -1,6 +1,6 @@
 """Native (C++) host helpers, built on first use with graceful fallback.
 
-The compute path is JAX/Pallas on TPU; this package holds the host-side
+The compute path is JAX on the accelerator; this package holds the host-side
 runtime pieces the reference implements natively (packed-seq's SIMD
 packing, the bench crate's needletail FASTA ingestion,
 /root/reference/bench/src/lib.rs:51-82): ASCII->2-bit packing, ambiguity
@@ -47,17 +47,6 @@ def _build_and_load():
         lib.pack_ascii.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
                                    ctypes.c_void_p, ctypes.c_void_p]
         lib.pack_2bit.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
-        lib.pack_2bit_striped.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                                          ctypes.c_int64, ctypes.c_int64,
-                                          ctypes.c_int64, ctypes.c_void_p]
-        lib.pack_bytes_striped.argtypes = lib.pack_2bit_striped.argtypes
-        lib.pack_2bit_rowstriped.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-        lib.pack_2bit_rowstriped_multi.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
         lib.fasta_scan.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
                                    ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p, ctypes.c_int64]
@@ -184,108 +173,4 @@ def kmer_values_u64(codes: np.ndarray, positions: np.ndarray, k: int,
     lib.kmer_values_u64(_ptr(codes), _ptr(positions),
                         ctypes.c_int64(positions.size), ctypes.c_int64(k),
                         ctypes.c_int(1 if canonical else 0), _ptr(out))
-    return out
-
-
-def rowstriped_need_chars_raw(nblocks: int, bc: int, c0: int, spw: int) -> int:
-    """Input chars pack_2bit_rowstriped reads for this geometry (the last
-    row of the last block spans 16*spw chars). Single source of the
-    span-size formula — ops.fused.rowstriped_need_chars delegates here."""
-    return (nblocks - 1) * bc + (bc // c0 - 1) * c0 + 16 * spw if nblocks else 0
-
-
-def pack_2bit_rowstriped(codes: np.ndarray, nblocks: int, bc: int, c0: int,
-                         sp: int, spw: int, spw_pad: int) -> np.ndarray:
-    """Row-striped 2-bit packing: (8, spw_pad) words per block, row r of
-    block b covering chars [b*bc + r*c0, +sp) striped over 16 phases."""
-    lib = _build_and_load()
-    out = np.zeros(nblocks * 8 * spw_pad, np.uint32)
-    if lib is not None and nblocks:
-        codes = np.ascontiguousarray(codes, np.uint8)
-        lib.pack_2bit_rowstriped(_ptr(codes), nblocks, bc, c0, sp, spw,
-                                 spw_pad, _ptr(out))
-        return out
-    out3 = out.reshape(nblocks, 8, spw_pad)
-    for b in range(nblocks):
-        for r in range(8):
-            base = b * bc + r * c0
-            for t in range(16):
-                seg = codes[base + t * spw : base + t * spw + spw]
-                out3[b, r, :spw] |= (seg.astype(np.uint32) & 3) << np.uint32(2 * t)
-    return out
-
-
-def pack_2bit_rowstriped_multi(codes: np.ndarray, starts: np.ndarray,
-                               lens: np.ndarray, nblocks: int, bc: int,
-                               c0: int, sp: int, spw: int,
-                               spw_pad: int) -> np.ndarray:
-    """Row-striped packing of ndev spans of `codes` in one native call.
-
-    Span d starts at char starts[d] and exposes lens[d] chars (reads past
-    its length yield 0). Returns (ndev, nblocks*8, spw_pad) uint32 — the
-    concatenation of per-span pack_2bit_rowstriped results, with no
-    intermediate padded span copies.
-    """
-    starts = np.ascontiguousarray(starts, np.int64)
-    lens = np.ascontiguousarray(lens, np.int64)
-    ndev = int(starts.size)
-    lib = _build_and_load()
-    out = np.zeros(ndev * nblocks * 8 * spw_pad, np.uint32)
-    if lib is not None and ndev and nblocks:
-        codes = np.ascontiguousarray(codes, np.uint8)
-        lib.pack_2bit_rowstriped_multi(_ptr(codes), _ptr(starts), _ptr(lens),
-                                       ndev, nblocks, bc, c0, sp, spw,
-                                       spw_pad, _ptr(out))
-        return out.reshape(ndev, nblocks * 8, spw_pad)
-    out3 = out.reshape(ndev, nblocks * 8, spw_pad)
-    need = rowstriped_need_chars_raw(nblocks, bc, c0, spw)
-    for d in range(ndev):
-        span = np.zeros(max(need, 0), np.uint8)
-        ln = int(lens[d])
-        span[:ln] = codes[int(starts[d]) : int(starts[d]) + ln]
-        out3[d] = pack_2bit_rowstriped(span, nblocks, bc, c0, sp, spw,
-                                       spw_pad).reshape(nblocks * 8, spw_pad)
-    return out3
-
-
-def pack_bytes_striped(codes: np.ndarray, nblocks: int, bc: int,
-                       slabw: int, slabw_pad: int) -> np.ndarray:
-    """Striped byte packing (4 chars/word, 8-bit fields) for general-ASCII
-    fused-kernel input; layout mirrors pack_2bit_striped with 4 phases."""
-    lib = _build_and_load()
-    out = np.zeros(nblocks * slabw_pad, np.uint32)
-    if lib is not None and nblocks:
-        codes = np.ascontiguousarray(codes, np.uint8)
-        lib.pack_bytes_striped(_ptr(codes), nblocks, bc, slabw, slabw_pad, _ptr(out))
-        return out
-    out2 = out.reshape(nblocks, slabw_pad)
-    v = np.lib.stride_tricks.as_strided(
-        codes, shape=(nblocks, 4 * slabw), strides=(bc * codes.strides[0], codes.strides[0])
-    )
-    for t in range(4):
-        out2[:, :slabw] |= v[:, t * slabw : (t + 1) * slabw].astype(np.uint32) << np.uint32(8 * t)
-    return out
-
-
-def pack_2bit_striped(codes: np.ndarray, nblocks: int, bc: int,
-                      slabw: int, slabw_pad: int) -> np.ndarray:
-    """Striped 2-bit packing for the fused kernel's in-VMEM decode.
-
-    Block b's word m packs chars {b*bc + t*slabw + m : t<16}, char t at
-    bits 2t. `codes` must cover nblocks*bc + 16*slabw chars.
-    Returns uint32 array of nblocks * slabw_pad words.
-    """
-    lib = _build_and_load()
-    out = np.zeros(nblocks * slabw_pad, np.uint32)
-    if lib is not None and nblocks:
-        codes = np.ascontiguousarray(codes, np.uint8)
-        lib.pack_2bit_striped(_ptr(codes), nblocks, bc, slabw, slabw_pad, _ptr(out))
-        return out
-    # vectorized fallback: overlapping block view via stride tricks
-    out2 = out.reshape(nblocks, slabw_pad)
-    v = np.lib.stride_tricks.as_strided(
-        codes, shape=(nblocks, 16 * slabw), strides=(bc * codes.strides[0], codes.strides[0])
-    )
-    for t in range(16):
-        out2[:, :slabw] |= (v[:, t * slabw : (t + 1) * slabw].astype(np.uint32) & 3) << np.uint32(2 * t)
     return out

@@ -1,7 +1,7 @@
 // Native sequence ingestion: ASCII -> 2-bit packing and FASTA scanning.
 //
 // The reference's sequence layer (packed-seq) is SIMD Rust; this is the
-// TPU framework's host-side equivalent: a small C++ library (built with
+// framework's host-side equivalent: a small C++ library (built with
 // -O3 -march=native, auto-vectorized) doing the byte-level work that
 // would bottleneck single-core Python. The device never sees ASCII.
 //
@@ -10,9 +10,11 @@
 //
 // Exposed C ABI (ctypes):
 //   pack_ascii(ascii, n, codes, amb)        -> void
+//   pack_2bit(codes, n, out)                -> void
 //   fasta_scan(buf, len, codes, amb, starts, max_recs) -> n_records
 //     codes/amb are filled with the concatenated per-record sequences;
 //     starts[i] = offset of record i in codes; starts[n_records] = total.
+//   kmer_values_u64(codes, pos, m, k, canonical, out) -> void
 
 #include <cstddef>
 #include <cstdint>
@@ -62,105 +64,6 @@ void pack_2bit(const uint8_t* codes, size_t n, uint8_t* out) {
         uint8_t v = 0;
         for (size_t i = 4 * nb; i < n; i++) v |= (uint8_t)(codes[i] << (2 * (i % 4)));
         out[nb] = v;
-    }
-}
-
-// Striped 2-bit packing for the fused TPU kernel's in-VMEM decode.
-// Block b covers chars [b*bc, b*bc + 16*slabw) (blocks overlap by the
-// halo); its word m packs chars {t*slabw + m : t < 16} with char t at
-// bits 2t. On device, a 16x tile-repeat + per-phase shift then yields the
-// chars in natural order without any lane interleave.
-void pack_2bit_striped(const uint8_t* codes, int64_t nblocks, int64_t bc,
-                       int64_t slabw, int64_t slabw_pad, uint32_t* out) {
-    for (int64_t b = 0; b < nblocks; b++) {
-        uint32_t* ob = out + b * slabw_pad;
-        for (int64_t m = 0; m < slabw_pad; m++) ob[m] = 0;
-        const uint8_t* base = codes + b * bc;
-        for (int t = 0; t < 16; t++) {
-            const uint8_t* src = base + (int64_t)t * slabw;
-            const uint32_t sh = 2 * t;
-            for (int64_t m = 0; m < slabw; m++) ob[m] |= ((uint32_t)src[m] & 3u) << sh;
-        }
-    }
-}
-
-// Striped byte packing for the fused kernel's general-ASCII input path:
-// like pack_2bit_striped but 4 chars per u32 word, 8-bit fields (char t
-// of word m at bits 8t). Used for AsciiSeq (folded to 2-bit on device)
-// and general &[u8] text, where chars don't fit 2 bits.
-void pack_bytes_striped(const uint8_t* codes, int64_t nblocks, int64_t bc,
-                        int64_t slabw, int64_t slabw_pad, uint32_t* out) {
-    for (int64_t b = 0; b < nblocks; b++) {
-        uint32_t* ob = out + b * slabw_pad;
-        for (int64_t m = 0; m < slabw_pad; m++) ob[m] = 0;
-        const uint8_t* base = codes + b * bc;
-        for (int t = 0; t < 4; t++) {
-            const uint8_t* src = base + (int64_t)t * slabw;
-            const uint32_t sh = 8 * t;
-            for (int64_t m = 0; m < slabw; m++) ob[m] |= ((uint32_t)src[m]) << sh;
-        }
-    }
-}
-
-// Row-striped 2-bit packing: each block holds RB=8 lane rows of SP chars
-// (rows overlap by the halo; the duplication is the price of a fully
-// (8,lane)-shaped on-device decode). Block b, row r covers chars
-// [b*bc + r*c0, +sp); word (r, m) packs chars {t*spw + m : t < 16} of
-// that row, char t at bits 2t. Output: nblocks * 8 * spw_pad words,
-// row-major (8, spw_pad) per block.
-void pack_2bit_rowstriped(const uint8_t* codes, int64_t nblocks, int64_t bc,
-                          int64_t c0, int64_t sp, int64_t spw,
-                          int64_t spw_pad, uint32_t* out) {
-    for (int64_t b = 0; b < nblocks; b++) {
-        for (int r = 0; r < 8; r++) {
-            uint32_t* ob = out + (b * 8 + r) * spw_pad;
-            for (int64_t m = 0; m < spw_pad; m++) ob[m] = 0;
-            const uint8_t* base = codes + b * bc + r * c0;
-            for (int t = 0; t < 16; t++) {
-                const uint8_t* src = base + (int64_t)t * spw;
-                const uint32_t sh = 2 * t;
-                for (int64_t m = 0; m < spw; m++)
-                    ob[m] |= ((uint32_t)src[m] & 3u) << sh;
-            }
-        }
-    }
-}
-
-// Multi-span row-striped packing: packs `ndev` spans of one codes array
-// in a single call, each span starting at chars starts[d] with lens[d]
-// readable chars (chars past the span's length read as 0). Output layout
-// is ndev consecutive pack_2bit_rowstriped results (nblocks * 8 * spw_pad
-// words each). This is the sharded-sketch packer: it removes both the
-// per-device Python loop and the per-device padded span copies — one pass
-// from the source array straight into the wire buffer.
-void pack_2bit_rowstriped_multi(const uint8_t* codes, const int64_t* starts,
-                                const int64_t* lens, int64_t ndev,
-                                int64_t nblocks, int64_t bc, int64_t c0,
-                                int64_t sp, int64_t spw, int64_t spw_pad,
-                                uint32_t* out) {
-    (void)sp;
-    for (int64_t d = 0; d < ndev; d++) {
-        const uint8_t* src0 = codes + starts[d];
-        const int64_t len = lens[d];
-        uint32_t* od = out + d * nblocks * 8 * spw_pad;
-        for (int64_t b = 0; b < nblocks; b++) {
-            for (int r = 0; r < 8; r++) {
-                uint32_t* ob = od + (b * 8 + r) * spw_pad;
-                for (int64_t m = 0; m < spw_pad; m++) ob[m] = 0;
-                const int64_t row0 = b * bc + r * c0;
-                if (row0 >= len) continue;  // fully past the span: zeros
-                for (int t = 0; t < 16; t++) {
-                    const int64_t off = row0 + (int64_t)t * spw;
-                    int64_t avail = len - off;
-                    if (avail <= 0) continue;
-                    const int64_t mmax = avail < spw ? avail : spw;
-                    const uint8_t* src = src0 + off;
-                    const uint32_t sh = 2 * t;
-                    for (int64_t m = 0; m < mmax; m++)
-                        ob[m] |= ((uint32_t)src[m] & 3u) << sh;
-                }
-            }
-        }
     }
 }
 

@@ -1,66 +1,38 @@
-"""Backend dispatch: fused Pallas kernel on TPU, XLA pipeline elsewhere.
+"""Backend dispatch onto the XLA lane-matrix pipeline.
 
-The two backends are bit-identical (enforced by tests/test_fused.py and
-tests/test_pipeline_vs_oracle.py); the fused kernel is ~3x faster on TPU
-(round-3 on-chip: 0.17 vs 0.52 ns/bp canonical k=21 w=11 on one v5e
-chip, bench/results.json external vs xla_pipeline rows).
+A sequence of up to PIPELINE_CHUNK_WINDOWS windows runs as one jitted
+call (ops/pipeline.py); a longer one streams fixed-geometry chunks
+(ops/chunked.py). Both are bit-identical to the NumPy oracle
+(tests/test_pipeline_vs_oracle.py, tests/test_backend_sketch.py).
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 
 from ..hashers import KmerHasher
 from . import pipeline
 
-# beyond this many windows, the non-TPU path streams fixed-geometry chunks
+# beyond this many windows, a sequence streams fixed-geometry chunks
 # (ops/chunked.py) instead of building one giant lane matrix
 PIPELINE_CHUNK_WINDOWS = 1 << 24
 
-# sketch_records routes >= this many small records (each <=
-# SMTPU_RECORDS_BATCH_MAX_BP chars) through the batch engine: below it,
-# per-record waves are already ~1 round trip each and batching only adds
-# stride padding + the ambiguity plane
+# sketch_records routes >= RECORDS_BATCH_MIN_COUNT records of at most
+# RECORDS_BATCH_MAX_BP chars through the batch engine (one launch per
+# stride bucket); below that count batching only adds stride padding and
+# the ambiguity plane
 RECORDS_BATCH_MIN_COUNT = 8
+RECORDS_BATCH_MAX_BP = 1 << 20
 
 
-@functools.cache
-def _use_fused() -> bool:
-    import jax
-
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-def _fused_geometry_ok(fused, k, w, codes_np, dna):
-    """(supported, dna): whether the fused kernel covers (k, w) for this
-    input. The wider row-striped halo bound (fused.ROWSTRIPED_MAX_HALO)
-    only applies to 2-bit DNA inputs, so when it is the bound that admits
-    the call and the caller didn't classify the input, probe once here
-    and thread the answer down (avoids a second probe in _fused_launch).
-    """
-    if fused.fused_supported(k, w):
-        return True, dna
-    if fused.fused_supported(k, w, dna=True):
-        if dna is None:
-            from ..utils.bits import probe_is_dna
-
-            dna = bool(probe_is_dna(codes_np))
-        return dna, dna
-    return False, dna
-
-
-def _bucket_G(G: int) -> int:
-    """Round the grid size up to a power of two to bound recompiles.
-
-    Dead blocks are skipped at runtime by the kernel's active-block gating,
-    so over-provisioning costs a few SMEM compares per dead block.
-    """
-    return 1 << (G - 1).bit_length() if G > 1 else 1
+def _check_params(k: int, w: int, hasher: KmerHasher, mode: str) -> None:
+    l = k + w - 1
+    if mode == pipeline.MODE_OPEN_SYNCMERS:
+        assert w % 2 == 1, "open syncmers require odd w"
+    if hasher.canonical:
+        assert l % 2 == 1, (
+            f"window length l={l} must be odd to determine strand"
+        )
 
 
 def sketch(
@@ -70,51 +42,13 @@ def sketch(
     hasher: KmerHasher,
     mode: str = pipeline.MODE_MINIMIZERS,
     ambiguous_np: np.ndarray | None = None,
-    dna: bool | None = None,
 ):
-    """Positions (or (positions, superkmer indices)) via the best backend.
-
-    `dna` tells the fused path whether codes are 2-bit DNA (threaded from
-    the seq type by the public API so no hot path scans the input on host;
-    None falls back to a probe)."""
+    """Positions (or (positions, superkmer indices)) of one sequence."""
     n = int(codes_np.shape[0])
     l = k + w - 1
-    # parameter validity is path-independent (the chunked fallback calls
+    # parameter validity is path-independent (the chunked path calls
     # run_chunk directly, which does not re-check)
-    if mode == pipeline.MODE_OPEN_SYNCMERS:
-        assert w % 2 == 1, "open syncmers require odd w"
-    if hasher.canonical:
-        assert l % 2 == 1, (
-            f"window length l={l} must be odd to determine strand"
-        )
-    if _use_fused():
-        from . import fused
-
-        # geometry outside the fused kernel's bounds (huge halo or
-        # packed-min columns, fused.fused_supported) falls through to the
-        # XLA pipeline below — it runs on TPU too: slower, never wrong.
-        # Row-striped DNA admits halos up to ROWSTRIPED_MAX_HALO (the
-        # reference's full w < 2^15 range at fused speed); the O(n) DNA
-        # probe only runs when the wider bound is what admits the input.
-        ok, dna = _fused_geometry_ok(fused, k, w, codes_np, dna)
-        if ok:
-            if n >= (1 << 30):
-                return fused.sketch_long(
-                    codes_np, k, w, hasher, mode=mode,
-                    ambiguous_np=ambiguous_np, dna=dna,
-                )
-            nw = max(n - l + 1, 1)
-            # one geometry for all sizes: measured A/B shows the big-C
-            # kernel beats a C=1024 small-block variant even at len 1024
-            # (153 vs 200 us/call) — the per-call floor is launch
-            # overhead, not block compute, so the extra compile variant
-            # bought nothing.
-            C = fused.DEF_C
-            G = _bucket_G(-(-nw // (fused.RB * C)))
-            return fused.fused_sketch(
-                codes_np, k, w, hasher, mode=mode, ambiguous_np=ambiguous_np,
-                C=C, G=G, dna=dna,
-            )
+    _check_params(k, w, hasher, mode)
     if n >= l and (n - l + 1) > PIPELINE_CHUNK_WINDOWS:
         from . import chunked
 
@@ -134,87 +68,43 @@ def sketch_records(
     hasher: KmerHasher,
     mode: str = pipeline.MODE_MINIMIZERS,
     ambiguous=None,
-    dna: bool | None = None,
 ):
     """Sketch many independent sequences; list of per-record results.
 
-    On TPU, records are launched in asynchronous waves ACROSS record
-    boundaries (fused.sketch_records): host pack overlaps device compute
-    and each wave harvests with one stacked count fetch, so a
-    multi-record genome pays ~1 round trip per record instead of 2.
-    When the list holds MANY SMALL records (>= RECORDS_BATCH_MIN_COUNT
-    records of <= SMTPU_RECORDS_BATCH_MAX_BP chars), those go through the
-    batch engine instead — one launch per stride bucket for the whole
-    set, which removes even the per-record fetch (round-4 measured: 6.5x
-    the per-record wave at 200 x 0.1 Mbp, and 35M reads/s at 150 bp
-    through the batch engine — bench/onchip_r4_results.json
-    records_batchroute / the results.json batch rows).
-    Elsewhere it is a plain per-record loop. Bit-identical to calling
-    sketch() on each record.
+    When the list holds many small records (>= RECORDS_BATCH_MIN_COUNT
+    records of l..RECORDS_BATCH_MAX_BP chars), those go through the batch
+    engine: one launch per stride bucket for the whole set instead of one
+    per record. Every other record is sketched on its own. Bit-identical
+    to calling sketch() on each record.
     """
     l = k + w - 1
     pipeline.assert_no_superkmer_ambiguity(
         mode, ambiguous is not None and any(a is not None for a in ambiguous))
-    if mode == pipeline.MODE_OPEN_SYNCMERS:
-        assert w % 2 == 1, "open syncmers require odd w"
-    if hasher.canonical:
-        assert l % 2 == 1, (
-            f"window length l={l} must be odd to determine strand"
-        )
-    from . import fused
-
-    # the wider row-striped halo bound needs an explicit dna=True here
-    # (records are a list — no single cheap probe); dna=None large-w
-    # inputs fall to the per-record sketch() loop, which probes each
-    if _use_fused() and (fused.fused_supported(k, w)
-                         or (dna is True
-                             and fused.fused_supported(k, w, dna=True))):
-        import os
-
-        amb = (list(ambiguous) if ambiguous is not None
-               else [None] * len(records))
-        assert len(amb) == len(records), "ambiguous must align with records"
-        small_max = int(os.environ.get("SMTPU_RECORDS_BATCH_MAX_BP", 1 << 20))
-        small = [i for i, r in enumerate(records)
-                 if l <= len(r) <= small_max]
-        if len(small) >= RECORDS_BATCH_MIN_COUNT:
-            out = [None] * len(records)
-            small_set = set(small)
-            big = [i for i in range(len(records)) if i not in small_set]
-            if big:
-                for i, res in zip(big, fused.sketch_records(
-                        [records[i] for i in big], k, w, hasher, mode=mode,
-                        ambiguous=[amb[i] for i in big], dna=dna)):
-                    out[i] = res
-            sub_amb = None
-            if any(amb[i] is not None for i in small):
-                # the batch engine wants a dense list (no None entries)
-                sub_amb = [amb[i] if amb[i] is not None
-                           else np.zeros(len(records[i]), np.uint8)
-                           for i in small]
-            res = sketch_batch([records[i] for i in small], k, w, hasher,
-                               mode=mode, ambiguous=sub_amb, dna=dna)
-            rid, parts = res[0], res[1:]
-            counts = np.bincount(rid, minlength=len(small))
-            splits = [np.split(p, np.cumsum(counts)[:-1]) for p in parts]
-            for j, i in enumerate(small):
-                out[i] = (tuple(s[j] for s in splits) if len(splits) > 1
-                          else splits[0][j])
-            empty = np.zeros(0, np.uint32)
-            for i in range(len(records)):
-                if out[i] is None:  # records shorter than one window
-                    out[i] = ((empty, empty)
-                              if mode == pipeline.MODE_SUPERKMERS else empty)
-            return out
-        return fused.sketch_records(
-            records, k, w, hasher, mode=mode, ambiguous=ambiguous, dna=dna
-        )
+    _check_params(k, w, hasher, mode)
     amb = list(ambiguous) if ambiguous is not None else [None] * len(records)
     assert len(amb) == len(records), "ambiguous must align with records"
-    return [
-        sketch(c, k, w, hasher, mode=mode, ambiguous_np=amb[i], dna=dna)
-        for i, c in enumerate(records)
-    ]
+    out = [None] * len(records)
+    small = [i for i, r in enumerate(records)
+             if l <= len(r) <= RECORDS_BATCH_MAX_BP]
+    if len(small) >= RECORDS_BATCH_MIN_COUNT:
+        sub_amb = None
+        if any(amb[i] is not None for i in small):
+            # the batch engine wants a dense list (no None entries)
+            sub_amb = [amb[i] if amb[i] is not None
+                       else np.zeros(len(records[i]), np.uint8)
+                       for i in small]
+        res = sketch_batch([records[i] for i in small], k, w, hasher,
+                           mode=mode, ambiguous=sub_amb)
+        rid, parts = res[0], res[1:]
+        counts = np.bincount(rid, minlength=len(small))
+        splits = [np.split(p, np.cumsum(counts)[:-1]) for p in parts]
+        for j, i in enumerate(small):
+            out[i] = (tuple(s[j] for s in splits) if len(splits) > 1
+                      else splits[0][j])
+    for i, rec in enumerate(records):
+        if out[i] is None:
+            out[i] = sketch(rec, k, w, hasher, mode=mode, ambiguous_np=amb[i])
+    return out
 
 
 def sketch_batch(
@@ -224,18 +114,15 @@ def sketch_batch(
     hasher: KmerHasher,
     mode: str = pipeline.MODE_MINIMIZERS,
     ambiguous=None,
-    C: int | None = None,
-    dna: bool | None = None,
 ):
     """Batched reads: (read_ids, positions[, superkmer indices]).
 
-    All reads of a stride bucket go through ONE launch (fused Pallas kernel
-    on TPU for 2-bit DNA codes, the XLA pipeline elsewhere / for general
-    text); see ops/batch.py. Results are ordered by read and bit-identical
-    to sketching each read alone.
+    All reads of a stride bucket go through one pipeline launch; see
+    ops/batch.py. Results are ordered by read and bit-identical to
+    sketching each read alone.
     """
     from . import batch
 
     return batch.sketch_batch(
-        reads, k, w, hasher, mode=mode, ambiguous=ambiguous, C=C, dna=dna
+        reads, k, w, hasher, mode=mode, ambiguous=ambiguous
     )

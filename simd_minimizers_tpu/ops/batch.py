@@ -1,6 +1,6 @@
 """Batched-read sketching: flat slot packing with ambiguous padding.
 
-The TPU-native answer to the reference's short-sequence workload
+The answer to the reference's short-sequence workload
 (/root/reference/bench/src/bin/paper.rs:61-115): instead of paying the
 streaming warm-up per read, reads are laid end-to-end in one flat char
 stream at a per-batch `stride` (read i owns chars [i*stride, i*stride+len)),
@@ -8,15 +8,13 @@ and every padding char is marked AMBIGUOUS. Windows that touch padding are
 SKIPPED by the existing ambiguity machinery, so reads never interact:
 no window spans two reads, the dedup chain restarts after each SKIPPED gap,
 and read attribution is `pos // stride` on the host. The whole batch then
-runs through the ordinary streaming kernel (fused Pallas on TPU, the XLA
-lane-matrix pipeline elsewhere) in one launch per stride bucket — there is
-no per-slot state on device at all, so batch size is unbounded and reads
-may be arbitrarily long (a >C-char read just spans several lane rows).
+runs through the XLA lane-matrix pipeline in one launch per stride bucket
+— there is no per-slot state on device at all, so batch size is unbounded
+and reads may be arbitrarily long (a >C-char read just spans several lane
+rows).
 
 Strides are bucketed to a 3-bit mantissa (values m * 2^e, 8 <= m < 16) to
-bound Mosaic recompiles; padding waste is < 12.5% (typically ~6%). Grids
-are power-of-two bucketed too — dead blocks cost ~nothing thanks to the
-kernel's active-block gating.
+bound recompiles; padding waste is < 12.5% (typically ~6%).
 
 Outputs are ordered by read and bit-identical to running each read alone
 (enforced by tests/test_batch.py against the NumPy oracle).
@@ -30,15 +28,15 @@ from ..hashers import KmerHasher
 from . import backend as _backend
 from . import pipeline
 from .pipeline import (
-    MODE_CLOSED_SYNCMERS,
     MODE_MINIMIZERS,
     MODE_OPEN_SYNCMERS,
     MODE_SUPERKMERS,
-    hasher_jit_args,
 )
 
-# max chars per kernel launch (positions are int32-safe inside one call)
-MAX_LAUNCH_CHARS = 1 << 30
+# max chars per launch: the pipeline materializes a launch as (R, C)
+# lane-matrix planes, so the cap matches the memory bound backend.sketch
+# enforces for single sequences
+MAX_LAUNCH_CHARS = _backend.PIPELINE_CHUNK_WINDOWS
 
 
 def _stride_bucket(x: int) -> int:
@@ -71,29 +69,6 @@ def _fill_slots(reads, ambs, stride: int, need: int):
     return codes, amb
 
 
-def _launch_fused(codes, amb, nw, k, w, hasher, mode, C, G, interpret, l):
-    import jax.numpy as jnp
-
-    from . import fused
-
-    PADH = fused.padh_for(l)
-    key, table, mul_const = hasher_jit_args(hasher)
-    packed = fused.pack_rowstriped(codes, G, C, PADH)
-    amb_packed = fused.pack_rowstriped(amb, G, C, PADH)
-    out, idx, count = fused._fused_call(
-        jnp.asarray(packed), jnp.asarray(amb_packed),
-        jnp.asarray([nw, 0], np.int32),
-        jnp.asarray(table), jnp.asarray([mul_const], np.uint32),
-        k=k, w=w, mode=mode, skip_ambiguous=True, hasher_key=key,
-        C=C, G=G, interpret=interpret, input_mode="striped2r",
-    )
-    cnt = int(count[0])
-    out = np.asarray(out[: max(cnt, 1)][:cnt])
-    if mode == MODE_SUPERKMERS:
-        return out, np.asarray(idx[: max(cnt, 1)][:cnt])
-    return out, None
-
-
 def _launch_pipeline(codes, amb, nw, k, w, hasher, mode):
     l = k + w - 1
     n = nw + l - 1  # windows in [0, nw) need chars up to nw + l - 2
@@ -111,12 +86,8 @@ def sketch_batch(
     hasher: KmerHasher,
     mode: str = MODE_MINIMIZERS,
     ambiguous=None,
-    C: int | None = None,
-    backend: str = "auto",
-    interpret: bool = False,
-    dna: bool | None = None,
 ):
-    """Sketch a batch of reads; one kernel launch per stride bucket.
+    """Sketch a batch of reads; one pipeline launch per stride bucket.
 
     reads: list of per-read uint8 code arrays (2-bit DNA codes or raw text
     bytes), or a (B, L) uint8 matrix of equal-length reads.
@@ -138,24 +109,6 @@ def sketch_batch(
     if ambiguous is not None:
         ambiguous = [np.asarray(a, dtype=np.uint8).ravel() for a in ambiguous]
 
-    if backend == "auto":
-        if dna is None:
-            from ..utils.bits import probe_is_dna
-
-            dna = all(probe_is_dna(rd) for rd in reads)
-        from . import fused as _fused
-
-        use_fused = (dna and _backend._use_fused()
-                     and _fused.fused_supported(k, w, C, dna=True))
-    else:
-        use_fused = backend == "fused"
-        if use_fused:
-            from ..utils.bits import probe_is_dna
-
-            assert dna is None or dna, "the fused batch path ships 2-bit codes"
-            assert dna or all(probe_is_dna(rd) for rd in reads), \
-                "fused batch path requires 2-bit codes (DNA)"
-
     # group eligible reads (len >= l) by stride bucket; stride > len so at
     # least one ambiguous padding char separates consecutive reads
     groups: dict[int, list[int]] = {}
@@ -163,38 +116,18 @@ def sketch_batch(
         if len(rd) >= l:
             groups.setdefault(_stride_bucket(len(rd) + 1), []).append(i)
 
-    Cdef = C
     rid_parts, pos_parts, idx_parts = [], [], []
     emit_idx = mode == MODE_SUPERKMERS
-    # The XLA-pipeline fallback materializes the whole launch as (R, C)
-    # lane-matrix planes, so its per-launch cap must match the memory
-    # bound backend.sketch enforces for single sequences
-    # (PIPELINE_CHUNK_WINDOWS), not the fused kernel's streaming cap.
-    launch_chars = (
-        MAX_LAUNCH_CHARS if use_fused else _backend.PIPELINE_CHUNK_WINDOWS
-    )
     for stride, idxs in sorted(groups.items()):
-        per_launch = max(launch_chars // stride, 1)
+        per_launch = max(MAX_LAUNCH_CHARS // stride, 1)
         for s0 in range(0, len(idxs), per_launch):
             sub = idxs[s0 : s0 + per_launch]
             sub_reads = [reads[i] for i in sub]
             sub_amb = [ambiguous[i] for i in sub] if ambiguous is not None else None
             B = len(sub)
             nw = B * stride
-            if use_fused:
-                from . import fused
-
-                Cg = Cdef or fused.DEF_C
-                BC = fused.RB * Cg
-                G = _backend._bucket_G(-(-nw // BC))
-                need = max(G * BC + fused.TAIL,
-                           fused.rowstriped_need_chars(G, Cg, fused.padh_for(l)))
-                codes, amb = _fill_slots(sub_reads, sub_amb, stride, need)
-                out, idx = _launch_fused(codes, amb, nw, k, w, hasher, mode,
-                                         Cg, G, interpret, l)
-            else:
-                codes, amb = _fill_slots(sub_reads, sub_amb, stride, nw + l)
-                out, idx = _launch_pipeline(codes, amb, nw, k, w, hasher, mode)
+            codes, amb = _fill_slots(sub_reads, sub_amb, stride, nw + l)
+            out, idx = _launch_pipeline(codes, amb, nw, k, w, hasher, mode)
             src = idx if emit_idx else out
             slot = src // np.uint32(stride)
             rid_parts.append(np.asarray(sub, np.uint32)[slot])

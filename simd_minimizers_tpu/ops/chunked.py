@@ -3,7 +3,7 @@
 Splits a sequence into fixed-geometry chunks (so XLA compiles exactly one
 program), runs each chunk on device, and stitches results. The only
 cross-chunk state is the previous raw window value (a single u32) used for
-the adjacent-dedup seam — the TPU analog of the reference's cross-lane
+the adjacent-dedup seam — the streaming analog of the reference's cross-lane
 boundary dedup (/root/reference/src/collect.rs:252-272).
 
 Positions are sequence-global uint32; total length is capped at 2^32 chars

@@ -1,19 +1,19 @@
-"""Lane-matrix layout + windowed reductions: the TPU generalization of the
-reference's 8-lane split.
+"""Lane-matrix layout + windowed reductions: the data-parallel
+generalization of the reference's 8-lane split.
 
 The reference splits a sequence into 8 SIMD lanes with a w+k-2 character
 overlap so every window is owned by exactly one lane
-(/root/reference/src/lib.rs:29-30, src/sliding_min.rs:238-243). On TPU we
+(/root/reference/src/lib.rs:29-30, src/sliding_min.rs:238-243). Here we
 generalize to R lanes ("rows") of C owned windows each, laid out as a
 (R, C + l - 1) character matrix whose rows overlap by l-1 chars. All
 per-position ops then run on fixed-shape 2D arrays (rows = sublanes),
 keeping the XLA graph size independent of sequence length.
 
 All sliding-window reductions here use binary doubling over STATIC slices
-of the (R, S) matrix — no lax scans and no small trailing axes, which TPU
-layouts handle poorly. Windowed min uses the sparse-table overlap trick
-(idempotent ops); windowed xor/sum use the binary decomposition of the
-window length.
+of the (R, S) matrix — no lax scans and no small trailing axes (whether
+cumsum and scatter beat this on the GPU is not measured yet). Windowed
+min uses the sparse-table overlap trick (idempotent ops); windowed
+xor/sum use the binary decomposition of the window length.
 """
 
 from __future__ import annotations
@@ -48,8 +48,8 @@ def build_lane_matrix(flat: jnp.ndarray, R: int, C: int, span: int) -> jnp.ndarr
 def _hillis_steele(x: jnp.ndarray, axis: int) -> jnp.ndarray:
     """Inclusive prefix-sum along `axis` via doubling (static pad+slice+add).
 
-    XLA's native cumsum lowers poorly on TPU for large arrays; log2(n)
-    shifted adds stay on the VPU fast path.
+    log2(n) static shifted adds; whether XLA's native cumsum is faster on
+    the GPU is not measured yet.
     """
     n = x.shape[axis]
     d = 1
@@ -80,7 +80,7 @@ def _roll_flat_left(x2: jnp.ndarray, d: int) -> jnp.ndarray:
     """Roll a (R, C) array left by d in row-major (flat) order.
 
     Elements wrap to the end (callers treat the wrapped region as dead).
-    Only static slices/concats, so layouts stay TPU-friendly.
+    Only static slices/concats.
     """
     R, C = x2.shape
     if d % C == 0:

@@ -1,7 +1,7 @@
 """NumPy scalar oracle: reference semantics, written for clarity.
 
 This module is the correctness contract for every accelerated path
-(pure-jnp pipeline, fused Pallas kernels, sharded multi-host runs). It
+(the pure-jnp pipeline, chunked, batched and sharded runs). It
 mirrors the reference crate's observable behavior exactly:
 
 - window minima compare only the TOP 16 BITS of each 32-bit kmer hash,

@@ -1,11 +1,11 @@
-"""TPU-native array pipeline (pure jnp / XLA).
+"""Data-parallel array pipeline (pure jnp / XLA).
 
 This is the data-parallel reformulation of the reference's sequential
 streaming design (SURVEY.md §7), computed on a fixed-shape lane matrix so
 the compiled XLA graph is independent of sequence length:
 
 - lane layout          -> R rows of C owned windows with l-1 char halos
-                          (the TPU generalization of the reference's 8-lane
+                          (the data-parallel form of the reference's 8-lane
                           split, src/lib.rs:29-30, src/sliding_min.rs:238-243).
 - rolling ntHash       -> windowed XOR of per-position rotated table values
                           from one per-row prefix-XOR scan; the rolling
@@ -50,6 +50,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import compile_cache_dir
 from ..hashers import KmerHasher
 from ..utils.bits import SKIPPED as _SKIPPED_NP
 from .layout import (
@@ -63,6 +64,11 @@ from .layout import (
     windowed_sum,
     windowed_xor,
 )
+
+# through jax.config, so it also holds when JAX was imported (and read
+# its environment) before this package
+if not jax.config.jax_compilation_cache_dir:
+    jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
 
 U32 = jnp.uint32
 INVALID_INT = 0xFFFF_FFFF
@@ -202,8 +208,7 @@ def windowed_counts_2d(bits: jnp.ndarray, l: int) -> jnp.ndarray:
 def compact_flat(values: jnp.ndarray, keep: jnp.ndarray, R: int, C: int):
     """Stream compaction of a flat (R*C,) stream.
 
-    Butterfly left-pack (log2(R*C) roll+select stages) — XLA TPU scatter is
-    ~5 ns/elem while rolls stay on the VPU fast path.
+    Butterfly left-pack (log2(R*C) roll+select stages), no scatter.
     Returns (buffer[R*C] front-packed with INVALID tail, count int32)."""
     keep2 = keep.reshape(R, C)
     rank = cumsum_rows_carry(keep2.astype(jnp.int32))  # inclusive
@@ -226,8 +231,7 @@ def compact_rows(planes, keep2, row_local_of=None):
 
     With `row_local_of` = (localize, globalize) and a single plane, the
     butterfly runs on ONE packed u32 plane ((shift << 16) | local_value,
-    both fields < 2^16) — the XLA form of the fused kernel's packed
-    compaction.
+    both fields < 2^16).
     """
     keep_i = keep2.astype(jnp.int32)
     rank = _hillis_steele(keep_i, axis=1)  # inclusive per-row
@@ -333,8 +337,7 @@ def _pipeline_chunk_rows(codes, n, offset, prev_raw, ambiguous, k, w, hasher,
     sel2 = sel.reshape(R, C)
     gw2 = gw.reshape(R, C)
     # row-local packing: kept values lie in [rowbase, rowbase + C + l), so
-    # value - rowbase fits 16 bits for any C <= 32768 (the fused kernel's
-    # packed-compaction trick, done per row)
+    # value - rowbase fits 16 bits for any C <= 32768
     rowbase = (
         jax.lax.broadcasted_iota(jnp.int32, (R, C), 0) * C
     ).astype(U32) + offset.astype(U32)

@@ -8,8 +8,8 @@ cross-lane seam dedup, /root/reference/src/collect.rs:252-272):
    chars (so every window is owned by exactly one host).
 2. Each host runs the sharded device sketch on its local mesh with its
    global char offset — positions come out sequence-global.
-3. Per-host (positions, count) ragged buffers are all-gathered over DCN
-   (`process_allgather`) or collected by the caller; `merge_shard_positions`
+3. Per-host (positions, count) ragged buffers are all-gathered across
+   processes (`process_allgather`) or collected by the caller; `merge_shard_positions`
    concatenates and deduplicates at shard seams (adjacent shards emit the
    same minimizer only when it sits in the halo).
 
@@ -120,9 +120,8 @@ def local_shard_sketch(
     Mode-aware like the reference's single implementation
     (/root/reference/src/lib.rs:427-436, :451-496): returns global
     positions for minimizers, (positions, window indices) for super-k-mers,
-    and global window indices for syncmers. On TPU every mode runs through
-    the fused sharded kernel (shard.fused_sharded_sketch supports them
-    all); elsewhere the XLA sharded path serves.
+    and global window indices for syncmers, all through the sharded XLA
+    pipeline on this process's devices (shard.sharded_sketch).
     """
     pipeline.assert_no_superkmer_ambiguity(mode, ambiguous_np is not None)
     l = k + w - 1
@@ -133,20 +132,9 @@ def local_shard_sketch(
         return (empty, empty) if mode == pipeline.MODE_SUPERKMERS else empty
     local = codes_np[s:e]
     local_amb = ambiguous_np[s:e] if ambiguous_np is not None else None
-    from ..ops import backend
-
-    from ..ops import fused
-
     mesh = mesh or shard.default_mesh(local_only=True)
-    # fused_sharded_sketch takes 2-bit codes by contract (it packs the
-    # row-striped wire format unconditionally), so the wider row-striped
-    # halo bound applies: large w stays on the fused path here too
-    if backend._use_fused() and fused.fused_supported(k, w, dna=True):
-        res = shard.fused_sharded_sketch(local, k, w, hasher, mode=mode,
-                                         ambiguous_np=local_amb, mesh=mesh)
-    else:
-        res = shard.sharded_sketch(local, k, w, hasher, mode=mode,
-                                   ambiguous_np=local_amb, mesh=mesh)
+    res = shard.sharded_sketch(local, k, w, hasher, mode=mode,
+                               ambiguous_np=local_amb, mesh=mesh)
     off = np.uint32(s)
     if mode == pipeline.MODE_SUPERKMERS:
         pos, idx = res
@@ -160,8 +148,8 @@ def _allgather_ragged_planes(
     """All-gather same-count ragged uint32 planes: per-plane process lists.
 
     Pads to the max count and exchanges a single stacked (nplanes, cap)
-    buffer plus one counts vector over DCN — process_allgather is a full
-    DCN barrier, so planes that move in lockstep (e.g. the super-k-mer
+    buffer plus one counts vector — process_allgather is a full
+    cross-process barrier, so planes that move in lockstep (e.g. the super-k-mer
     positions + window-index pair) must share one exchange, not pay one
     barrier each.
     """
@@ -214,7 +202,7 @@ def multihost_sketch(
 
     Call identically on every host (after jax.distributed.initialize);
     each host sketches its shard on its local devices, shards all-gather
-    over DCN, and every host returns the identical global result:
+    across processes, and every host returns the identical global result:
     positions, (positions, super-k-mer window indices), or syncmer window
     indices — with `ambiguous_np` the N-containing windows are skipped
     (/root/reference/src/lib.rs:451-496). On a single process this

@@ -3,12 +3,13 @@
 The sequence is split into per-device spans (each a lane matrix of
 R rows x C windows, with l-1 char halos). Every device computes its own
 selected-window stream; the one value of cross-device state — the previous
-raw window value for the adjacent-dedup seam — rides the ICI via
-`jax.lax.ppermute`. Outputs stay sharded as (buffer, count) ragged pairs;
-the host (or an all_gather for device-side consumers) concatenates.
+raw window value for the adjacent-dedup seam — moves between neighbouring
+devices via `jax.lax.ppermute` (NCCL on GPUs). Outputs stay sharded as
+(buffer, count) ragged pairs; the host (or an all_gather for device-side
+consumers) concatenates.
 
 This generalizes the reference's 8-lane + cross-lane-seam-dedup design
-(/root/reference/src/collect.rs:252-272) to a TPU pod slice, and realizes
+(/root/reference/src/collect.rs:252-272) to a device mesh, and realizes
 the multi-host plan of SURVEY.md §2.4 / BASELINE.json config 5.
 """
 
@@ -71,7 +72,7 @@ def _device_body(codes, n_loc, offset, ambiguous, table, mul_const,
         keep = valid & is_sync & (sel != SKIPPED)
         out, count = compact_flat(gw, keep, R, C)
         return out[None], count[None]
-    # seam dedup: previous device's last raw window value over ICI
+    # seam dedup: previous device's last raw window value
     prev_last = jax.lax.ppermute(last_raw, AXIS, [(i, i + 1) for i in range(ndev - 1)])
     prev_last = jnp.where(jax.lax.axis_index(AXIS) == 0, INVALID, prev_last)
     prev = jnp.concatenate([prev_last.reshape(1), sel[:-1]])
@@ -136,8 +137,10 @@ def sharded_sketch(
     R = 1 << (R - 1).bit_length()
     FLAT = flat_length(Cg, R, l)
 
+    skip_ambiguous = ambiguous_np is not None
     codes = np.zeros((ndev, FLAT), dtype=np.uint8)
-    ambiguous = np.zeros((ndev, FLAT), dtype=np.uint8)
+    # the body reads the ambiguity plane only when skipping
+    ambiguous = np.zeros((ndev, FLAT if skip_ambiguous else 1), dtype=np.uint8)
     n_loc = np.zeros(ndev, dtype=np.int32)
     offsets = np.zeros(ndev, dtype=np.uint32)
     for d in range(ndev):
@@ -147,16 +150,18 @@ def sharded_sketch(
             continue
         chars_end = min(e - 1 + l, n)
         codes[d, : chars_end - s] = codes_np[s:chars_end]
-        if ambiguous_np is not None:
+        if skip_ambiguous:
             ambiguous[d, : chars_end - s] = ambiguous_np[s:chars_end]
         n_loc[d] = chars_end - s
         offsets[d] = s
 
     key, table, mul_const = hasher_jit_args(hasher)
+    # each device receives only its own span, straight from the host
+    spans = NamedSharding(mesh, P(AXIS))
     res = _jit_sharded(
-        jnp.asarray(codes), jnp.asarray(n_loc), jnp.asarray(offsets),
-        jnp.asarray(ambiguous), jnp.asarray(table), jnp.asarray(mul_const),
-        k=k, w=w, mode=mode, skip_ambiguous=ambiguous_np is not None,
+        *(jax.device_put(x, spans) for x in (codes, n_loc, offsets, ambiguous)),
+        jnp.asarray(table), jnp.asarray(mul_const),
+        k=k, w=w, mode=mode, skip_ambiguous=skip_ambiguous,
         hasher_key=key, C=Cg, R=R, mesh=mesh,
     )
     if mode == MODE_SUPERKMERS:
@@ -166,132 +171,3 @@ def sharded_sketch(
         return pos, sk
     out, counts = (np.asarray(x) for x in res)
     return np.concatenate([out[d, : counts[d]] for d in range(ndev)])
-
-
-# ---------------------------------------------------------------------------
-# Fused-kernel sharding: each device runs the full Pallas pipeline on its
-# halo'd span; host merges with seam dedup (parallel/multihost scheme).
-# ---------------------------------------------------------------------------
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "w", "mode", "skip_ambiguous", "hasher_key", "C", "G",
-                     "mesh", "interpret"),
-)
-def _jit_fused_sharded(words, amb_words, nws, table, mul_const,
-                       *, k, w, mode, skip_ambiguous, hasher_key, C, G, mesh,
-                       interpret):
-    from ..ops import fused
-
-    def body(words_loc, amb_loc, nw_loc, table, mul_const):
-        out, idx, count = fused._invoke_pallas(
-            words_loc[0], amb_loc[0], nw_loc[0],
-            table, mul_const,
-            k=k, w=w, mode=mode, skip_ambiguous=skip_ambiguous,
-            hasher_key=hasher_key, C=C, G=G, interpret=interpret,
-            input_mode="striped2r",
-        )
-        return out[None], idx[None], count[None]
-
-    return shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(AXIS), P(AXIS), P(AXIS), P(), P()),
-        out_specs=(P(AXIS), P(AXIS), P(AXIS)),
-        check_vma=False,
-    )(words, amb_words, nws, table, mul_const)
-
-
-def fused_sharded_sketch(
-    codes_np: np.ndarray,
-    k: int,
-    w: int,
-    hasher: KmerHasher,
-    mode: str = MODE_MINIMIZERS,
-    ambiguous_np: np.ndarray | None = None,
-    mesh: Mesh | None = None,
-    C: int | None = None,
-    interpret: bool = False,
-):
-    """Sketch one long sequence across the mesh with the fused Pallas kernel.
-
-    Each device owns an equal halo'd span of windows and runs the whole
-    fused pipeline locally (BASELINE config 5: per-shard sketches with
-    halo + offset-corrected merge), in every mode the reference supports
-    (/root/reference/src/lib.rs:427-436, :475-482): minimizers,
-    super-k-mers, open/closed syncmers, and skip-ambiguous-windows.
-    Returns the bit-exact global result (host seam-merged): positions, or
-    (positions, superkmer window indices), or syncmer window indices.
-    TPU-only for compiled runs; interpret=True runs the same path on a
-    CPU mesh for testing.
-    """
-    from ..ops import fused
-    from .multihost import merge_adjacent_shards
-
-    mesh = mesh or default_mesh()
-    ndev = int(mesh.shape[AXIS])
-    C = C or fused.DEF_C
-    l = k + w - 1
-    n = int(codes_np.shape[0])
-    empty = np.zeros(0, dtype=np.uint32)
-    if n < l:
-        return (empty, empty) if mode == MODE_SUPERKMERS else empty
-    if mode == MODE_OPEN_SYNCMERS:
-        assert w % 2 == 1, "open syncmers require odd w"
-    if hasher.canonical:
-        assert l % 2 == 1, f"window length l={l} must be odd to determine strand"
-    from ..ops.backend import _bucket_G
-    from .. import native
-
-    skip_ambiguous = ambiguous_np is not None
-    nw = n - l + 1
-    per_dev = -(-nw // ndev)
-    BC = fused.RB * C
-    # pow2-bucket the grid like the single-chip dispatch (backend.py): one
-    # compile serves contiguous size classes; dead blocks are gated off at
-    # runtime by the kernel for ~free
-    G = _bucket_G(max(1, -(-per_dev // BC)))
-    PADH = fused.padh_for(l)
-    SP, SPW, SPW_PAD = fused.rowstriped_geometry(C, PADH)
-    # one native call packs every device span straight from codes_np (no
-    # per-device padded copies, no Python loop over devices)
-    starts = np.zeros(ndev, np.int64)
-    lens = np.zeros(ndev, np.int64)
-    nws = np.zeros((ndev, 2), np.int32)
-    for d in range(ndev):
-        s = d * per_dev
-        e = min(s + per_dev, nw)
-        if s >= nw:
-            continue
-        chars_end = min(e - 1 + l, n)
-        starts[d] = s
-        lens[d] = chars_end - s
-        nws[d] = (e - s, np.asarray(np.uint32(s)).view(np.int32))
-    words = native.pack_2bit_rowstriped_multi(
-        codes_np, starts, lens, G, BC, C, SP, SPW, SPW_PAD)
-    if skip_ambiguous:
-        amb_words = native.pack_2bit_rowstriped_multi(
-            ambiguous_np, starts, lens, G, BC, C, SP, SPW, SPW_PAD)
-    else:
-        amb_words = np.zeros((ndev, fused.TAIL), np.uint32)
-    key, table, mul_const = hasher_jit_args(hasher)
-    out, idx, count = _jit_fused_sharded(
-        jnp.asarray(words), jnp.asarray(amb_words), jnp.asarray(nws),
-        jnp.asarray(table), jnp.asarray([mul_const], np.uint32),
-        k=k, w=w, mode=mode, skip_ambiguous=skip_ambiguous, hasher_key=key,
-        C=C, G=G, mesh=mesh, interpret=interpret,
-    )
-    counts = np.asarray(count).reshape(ndev)
-    shards = [np.asarray(out[d, : int(counts[d])]) for d in range(ndev)]
-    if mode in (MODE_CLOSED_SYNCMERS, MODE_OPEN_SYNCMERS):
-        # syncmer outputs are window indices: each shard owns a disjoint
-        # window range, so no seam dedup is needed
-        return np.concatenate(shards) if shards else empty
-    starts = [d * per_dev for d in range(ndev)]
-    if mode == MODE_SUPERKMERS:
-        idxs = [np.asarray(idx[d, : int(counts[d])]) for d in range(ndev)]
-        return merge_adjacent_shards(shards, starts, codes_np, k, w, hasher,
-                                     ambiguous_np, aux=idxs)
-    return merge_adjacent_shards(shards, starts, codes_np, k, w, hasher,
-                                 ambiguous_np)

@@ -41,18 +41,6 @@ def rotl32_var_np(x: np.ndarray, r: np.ndarray) -> np.ndarray:
     return (left | right).astype(U32)
 
 
-def probe_is_dna(codes_np: np.ndarray) -> bool:
-    """Last-resort O(n) host scan deciding 2-bit-DNA vs general-text codes.
-
-    Hot paths must NOT reach this: the public API derives the answer from
-    the sequence type (`seq.char_bits == 2`) and threads it down as the
-    `dna=` argument. Only raw-`np.ndarray` entry points with no type
-    information fall back here (tests monkeypatch this function to prove
-    the public API never calls it).
-    """
-    return codes_np.size == 0 or int(codes_np.max()) <= 3
-
-
 def splitmix64(x: int) -> int:
     """SplitMix64 finalizer; used to derive seeded hash tables."""
     mask = (1 << 64) - 1

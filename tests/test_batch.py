@@ -1,5 +1,5 @@
-"""Batched-reads sketching == per-read oracle (fused kernel in interpret
-mode, plus the XLA-pipeline batch backend and the auto dispatch)."""
+"""Batched-reads sketching (flat slot packing, one pipeline launch per
+stride bucket) == per-read oracle."""
 
 import numpy as np
 import pytest
@@ -9,15 +9,10 @@ from simd_minimizers_tpu.ops import oracle, pipeline
 from simd_minimizers_tpu.ops.batch import _stride_bucket, sketch_batch
 
 RNG = np.random.default_rng(0xBA7C4)
-C = 1024
 
 
 def _reads(lens):
     return [RNG.integers(0, 4, n, dtype=np.uint8) for n in lens]
-
-
-def _fused(reads, k, w, h, **kw):
-    return sketch_batch(reads, k, w, h, C=C, backend="fused", interpret=True, **kw)
 
 
 def test_stride_bucket():
@@ -35,7 +30,7 @@ def test_batch_minimizers(canonical):
     k, w = 21, 11
     reads = _reads([500, 31, 30, 0, 1024, 77, 300, 1024, 999, 64, 150])
     h = NtHasher(k, canonical=canonical)
-    rid, pos = _fused(reads, k, w, h)
+    rid, pos = sketch_batch(reads, k, w, h)
     assert np.all(np.diff(rid) >= 0)  # ordered by read
     for i, rd in enumerate(reads):
         want = (
@@ -49,7 +44,7 @@ def test_batch_superkmers():
     k, w = 5, 7
     reads = _reads([200, 64, 1000])
     h = NtHasher(k, canonical=True)
-    rid, pos, widx = _fused(reads, k, w, h, mode=pipeline.MODE_SUPERKMERS)
+    rid, pos, widx = sketch_batch(reads, k, w, h, mode=pipeline.MODE_SUPERKMERS)
     for i, rd in enumerate(reads):
         want_pos, want_idx = oracle.collect_and_dedup_with_index(
             oracle.selected_stream(rd, k, w, h))
@@ -62,7 +57,7 @@ def test_batch_syncmers(mode):
     k, w = 11, 7
     reads = _reads([300, 500])
     h = NtHasher(k)
-    rid, pos = _fused(reads, k, w, h, mode=mode)
+    rid, pos = sketch_batch(reads, k, w, h, mode=mode)
     for i, rd in enumerate(reads):
         want = oracle.collect_syncmers(
             oracle.selected_stream(rd, k, w, h), w,
@@ -76,7 +71,7 @@ def test_batch_skip_ambiguous():
     reads = _reads(lens)
     amb = [(RNG.random(n) < 0.02).astype(np.uint8) for n in lens]
     h = NtHasher(k, canonical=True)
-    rid, pos = _fused(reads, k, w, h, ambiguous=amb)
+    rid, pos = sketch_batch(reads, k, w, h, ambiguous=amb)
     for i, rd in enumerate(reads):
         sel = oracle.selected_stream(rd, k, w, h, ambiguous=amb[i])
         want = oracle.collect_and_dedup(sel, skip_sentinel=True)
@@ -91,7 +86,7 @@ def test_batch_split_over_launch_cap(monkeypatch):
     k, w = 5, 7
     reads = RNG.integers(0, 4, (11, 64), dtype=np.uint8)
     h = NtHasher(k, canonical=True)
-    rid, pos = _fused(reads, k, w, h)
+    rid, pos = sketch_batch(reads, k, w, h)
     for i in range(11):
         want = oracle.collect_and_dedup(oracle.selected_stream(reads[i], k, w, h))
         np.testing.assert_array_equal(pos[rid == i], want, err_msg=f"read {i}")
@@ -100,12 +95,12 @@ def test_batch_split_over_launch_cap(monkeypatch):
 @pytest.mark.parametrize("canonical", [False, True])
 def test_batch_dense_short_reads(canonical):
     """Mixed lengths spread over several stride buckets, one long 10kb read
-    (longer than a C=1024 lane row: spans multiple rows/blocks)."""
+    (longer than a lane row: spans multiple rows)."""
     k, w = 21, 11
     lens = [150, 0, 200, 31, 100, 250, 37, 250, 199, 64, 250, 180, 90, 10_000]
     reads = _reads(lens)
     h = NtHasher(k, canonical=canonical)
-    rid, pos = _fused(reads, k, w, h)
+    rid, pos = sketch_batch(reads, k, w, h)
     for i, rd in enumerate(reads):
         want = (
             oracle.collect_and_dedup(oracle.selected_stream(rd, k, w, h))
@@ -119,14 +114,14 @@ def test_batch_dense_superkmers_and_ambiguous():
     lens = [100, 120, 50, 128, 90]
     reads = _reads(lens)
     h = NtHasher(k, canonical=True)
-    rid, pos, widx = _fused(reads, k, w, h, mode=pipeline.MODE_SUPERKMERS)
+    rid, pos, widx = sketch_batch(reads, k, w, h, mode=pipeline.MODE_SUPERKMERS)
     for i, rd in enumerate(reads):
         want_pos, want_idx = oracle.collect_and_dedup_with_index(
             oracle.selected_stream(rd, k, w, h))
         np.testing.assert_array_equal(pos[rid == i], want_pos, err_msg=f"read {i}")
         np.testing.assert_array_equal(widx[rid == i], want_idx, err_msg=f"read {i}")
     amb = [(RNG.random(n) < 0.05).astype(np.uint8) for n in lens]
-    rid, pos = _fused(reads, k, w, h, ambiguous=amb)
+    rid, pos = sketch_batch(reads, k, w, h, ambiguous=amb)
     for i, rd in enumerate(reads):
         sel = oracle.selected_stream(rd, k, w, h, ambiguous=amb[i])
         want = oracle.collect_and_dedup(sel, skip_sentinel=True)
@@ -134,11 +129,14 @@ def test_batch_dense_superkmers_and_ambiguous():
 
 
 def test_batch_pipeline_backend():
-    """The XLA-pipeline batch path (non-TPU dispatch) matches the oracle."""
+    """The batch path reached through backend.sketch_batch matches the
+    oracle."""
+    from simd_minimizers_tpu.ops import backend
+
     k, w = 21, 11
     reads = _reads([500, 150, 0, 999, 150, 150])
     h = NtHasher(k, canonical=True)
-    rid, pos = sketch_batch(reads, k, w, h, backend="pipeline")
+    rid, pos = backend.sketch_batch(reads, k, w, h)
     for i, rd in enumerate(reads):
         want = (
             oracle.collect_and_dedup(oracle.selected_stream(rd, k, w, h))

@@ -114,17 +114,6 @@ def test_sharded_superkmers_and_syncmers():
     np.testing.assert_array_equal(got, _want(codes, k, w, h, mode=pipeline.MODE_CLOSED_SYNCMERS))
 
 
-def test_fused_sharded_interpret():
-    """Fused Pallas kernel inside shard_map over the 8-device mesh."""
-    from simd_minimizers_tpu.parallel.shard import fused_sharded_sketch
-
-    k, w = 21, 11
-    codes = RNG.integers(0, 4, 120000, dtype=np.uint8)
-    h = NtHasher(k, canonical=True)
-    got = fused_sharded_sketch(codes, k, w, h, C=1024, interpret=True)
-    np.testing.assert_array_equal(got, _want(codes, k, w, h))
-
-
 def test_device_sketcher_matches_oracle():
     """Pre-compiled short-sequence sketcher (AOT program, donated input)
     == oracle, incl. the pipelined sketch_many path."""
@@ -137,7 +126,7 @@ def test_device_sketcher_matches_oracle():
     rng = np.random.default_rng(0xD5)
     k, w = 21, 11
     h = NtHasher(k, canonical=True)
-    sk = ShortSeqSketcher(k, w, h, interpret=True)
+    sk = ShortSeqSketcher(k, w, h)
     seqs = [rng.integers(0, 4, n, dtype=np.uint8)
             for n in (30, 31, 64, 1024, 8192)]
     wants = [
@@ -161,7 +150,7 @@ def test_device_sketcher_superkmers():
     rng = np.random.default_rng(0xD6)
     k, w = 5, 7
     h = NtHasher(k, canonical=True)
-    sk = ShortSeqSketcher(k, w, h, mode="superkmers", interpret=True)
+    sk = ShortSeqSketcher(k, w, h, mode="superkmers")
     codes = rng.integers(0, 4, 2000, dtype=np.uint8)
     got_p, got_i = sk.sketch(codes)
     want_p, want_i = oracle.collect_and_dedup_with_index(
@@ -170,14 +159,52 @@ def test_device_sketcher_superkmers():
     np.testing.assert_array_equal(got_i, want_i)
 
 
+def test_short_seq_sketcher_launch_harvest_offset():
+    """Async launch/harvest with a global offset; inputs past max_chars
+    are refused; measure_floor reports its three floors."""
+    from simd_minimizers_tpu.ops.device_sketcher import ShortSeqSketcher
+
+    rng = np.random.default_rng(0xD7)
+    k, w = 21, 11
+    h = NtHasher(k, canonical=True)
+    sk = ShortSeqSketcher(k, w, h, C=256)
+    assert sk.max_chars == 8 * 256 + k + w - 2
+    codes = rng.integers(0, 4, sk.max_chars, dtype=np.uint8)
+    handles = [sk.launch(codes, offset=off) for off in (0, 7, 1 << 31)]
+    want = _want(codes, k, w, h)
+    for off, hd in zip((0, 7, 1 << 31), handles):
+        np.testing.assert_array_equal(sk.harvest(hd), want + np.uint32(off))
+    with pytest.raises(AssertionError, match="route longer inputs"):
+        sk.launch(np.zeros(sk.max_chars + 1, np.uint8))
+    floor = sk.measure_floor(codes, m=3, probes=1)
+    assert set(floor) == {"sync_us", "per_call_us", "device_floor_us"}
+
+
+@pytest.mark.parametrize("mode", ["closed_syncmers", "open_syncmers"])
+def test_short_seq_sketcher_syncmers(mode):
+    from simd_minimizers_tpu.ops.device_sketcher import ShortSeqSketcher
+
+    rng = np.random.default_rng(0xD8)
+    k, w = 11, 7
+    h = NtHasher(k)
+    sk = ShortSeqSketcher(k, w, h, mode=mode, C=256)
+    for n in (10, 17, 300, sk.max_chars):
+        codes = rng.integers(0, 4, n, dtype=np.uint8)
+        want = (_want(codes, k, w, h, mode=mode) if n >= k + w - 1
+                else np.zeros(0, np.uint32))
+        np.testing.assert_array_equal(sk.sketch(codes), want, err_msg=f"n={n}")
+
+
 @pytest.mark.parametrize("mode", ["minimizers", "superkmers",
                                   "closed_syncmers", "open_syncmers"])
-def test_sketch_records_pipeline(mode):
-    """fused.sketch_records (the cross-record depth-2 launch pipeline):
-    per-record results bit-identical to sketching each record alone —
-    mixed lengths incl. empty, sub-window, single-span, and multi-span
-    records (span_chars forces several spans for the big one)."""
-    from simd_minimizers_tpu.ops import fused
+def test_sketch_records_pipeline(mode, monkeypatch):
+    """backend.sketch_records: per-record results bit-identical to
+    sketching each record alone — mixed lengths incl. empty, sub-window,
+    single-chunk, and multi-chunk records (a small PIPELINE_CHUNK_WINDOWS
+    makes the big one stream)."""
+    from simd_minimizers_tpu.ops import backend
+
+    monkeypatch.setattr(backend, "PIPELINE_CHUNK_WINDOWS", 12000)
 
     k, w = 7, 5
     l = k + w - 1
@@ -190,8 +217,7 @@ def test_sketch_records_pipeline(mode):
         rng.integers(0, 4, 33000, dtype=np.uint8),          # multi span
         rng.integers(0, 4, 2500, dtype=np.uint8),
     ]
-    got = fused.sketch_records(recs, k, w, h, mode=mode, C=1024,
-                               span_chars=12000, interpret=True)
+    got = backend.sketch_records(recs, k, w, h, mode=mode)
     assert len(got) == len(recs)
     for codes, g in zip(recs, got):
         want = _want(codes, k, w, h, mode=mode) if codes.size >= l else (
@@ -205,10 +231,10 @@ def test_sketch_records_pipeline(mode):
 
 
 def test_sketch_records_skip_ambiguous_and_asserts():
-    """Per-record ambiguity masks flow through the records pipeline
-    (None entries allowed); superkmers x ambiguity is rejected like the
-    public API."""
-    from simd_minimizers_tpu.ops import backend, fused
+    """Per-record ambiguity masks flow through sketch_records (None
+    entries allowed); superkmers x ambiguity is rejected like the public
+    API."""
+    from simd_minimizers_tpu.ops import backend
 
     k, w = 5, 7
     l = k + w - 1
@@ -218,33 +244,24 @@ def test_sketch_records_skip_ambiguous_and_asserts():
     ambs = [None,
             (rng.random(15000) < 0.01).astype(np.uint8),
             (rng.random(64) < 0.2).astype(np.uint8)]
-    got = fused.sketch_records(recs, k, w, h, ambiguous=ambs, C=1024,
-                               span_chars=6000, interpret=True)
+    got = backend.sketch_records(recs, k, w, h, ambiguous=ambs)
     for codes, amb, g in zip(recs, ambs, got):
-        want = _want(codes, k, w, h, ambiguous=amb)
-        np.testing.assert_array_equal(g, want)
-    with pytest.raises(AssertionError):
-        fused.sketch_records(recs, k, w, h, mode="superkmers",
-                             ambiguous=ambs, C=1024, interpret=True)
+        np.testing.assert_array_equal(g, _want(codes, k, w, h, ambiguous=amb))
     with pytest.raises(AssertionError):
         backend.sketch_records(recs, k, w, h, mode="superkmers",
                                ambiguous=ambs)
-    # non-TPU backend dispatch: plain per-record loop, same results
-    got_b = backend.sketch_records(recs, k, w, h, ambiguous=ambs)
-    for codes, amb, g in zip(recs, ambs, got_b):
-        np.testing.assert_array_equal(g, _want(codes, k, w, h, ambiguous=amb))
+    with pytest.raises(AssertionError, match="align"):
+        backend.sketch_records(recs, k, w, h, ambiguous=ambs[:2])
 
 
 @pytest.mark.parametrize("mode", ["minimizers", "superkmers",
                                   "closed_syncmers", "open_syncmers"])
 def test_backend_records_batch_routing(mode, monkeypatch):
     """backend.sketch_records routes many small records through the batch
-    engine (one launch per stride bucket) while big records take the wave
-    pipeline; the reassembled per-record results must be bit-identical to
-    sketching each record alone (incl. empty / sub-window records)."""
-    import functools
-
-    from simd_minimizers_tpu.ops import backend, batch, fused
+    engine (one launch per stride bucket) while big records are sketched
+    on their own; the reassembled per-record results must be bit-identical
+    to sketching each record alone (incl. empty / sub-window records)."""
+    from simd_minimizers_tpu.ops import backend
 
     k, w = 7, 5
     l = k + w - 1
@@ -258,14 +275,10 @@ def test_backend_records_batch_routing(mode, monkeypatch):
     order = rng.permutation(len(recs))
     recs = [recs[i] for i in order]
 
-    monkeypatch.setenv("SMTPU_RECORDS_BATCH_MAX_BP", "1000")
-    monkeypatch.setattr(backend, "_use_fused", lambda: True)
-    monkeypatch.setattr(backend, "sketch_batch",
-                        functools.partial(batch.sketch_batch, interpret=True))
-    monkeypatch.setattr(fused, "sketch_records",
-                        functools.partial(fused.sketch_records,
-                                          interpret=True, C=1024))
-    got = backend.sketch_records(recs, k, w, h, mode=mode, dna=True)
+    monkeypatch.setattr(backend, "RECORDS_BATCH_MAX_BP", 1000)
+    batched = _count_batches(monkeypatch, backend)
+    got = backend.sketch_records(recs, k, w, h, mode=mode)
+    assert batched == [12], "the 12 small records share one batch call"
     assert len(got) == len(recs)
     empty = np.zeros(0, np.uint32)
     for codes, g in zip(recs, got):
@@ -281,9 +294,7 @@ def test_backend_records_batch_routing(mode, monkeypatch):
 def test_backend_records_batch_routing_ambiguous(monkeypatch):
     """Batch-routed small records honor per-record ambiguity masks, with
     None entries normalized for the batch engine."""
-    import functools
-
-    from simd_minimizers_tpu.ops import backend, batch, fused
+    from simd_minimizers_tpu.ops import backend
 
     k, w = 5, 7
     h = NtHasher(k, canonical=True)
@@ -294,55 +305,21 @@ def test_backend_records_batch_routing_ambiguous(monkeypatch):
     ambs = [(rng.random(r.size) < 0.05).astype(np.uint8) if i % 2 else None
             for i, r in enumerate(recs)]
 
-    monkeypatch.setenv("SMTPU_RECORDS_BATCH_MAX_BP", "1000")
-    monkeypatch.setattr(backend, "_use_fused", lambda: True)
-    monkeypatch.setattr(backend, "sketch_batch",
-                        functools.partial(batch.sketch_batch, interpret=True))
-    monkeypatch.setattr(fused, "sketch_records",
-                        functools.partial(fused.sketch_records,
-                                          interpret=True, C=1024))
-    got = backend.sketch_records(recs, k, w, h, ambiguous=ambs, dna=True)
+    monkeypatch.setattr(backend, "RECORDS_BATCH_MAX_BP", 1000)
+    batched = _count_batches(monkeypatch, backend)
+    got = backend.sketch_records(recs, k, w, h, ambiguous=ambs)
+    assert batched == [10]
     for codes, amb, g in zip(recs, ambs, got):
         np.testing.assert_array_equal(g, _want(codes, k, w, h, ambiguous=amb))
 
 
-@pytest.mark.parametrize("mode", ["minimizers", "superkmers"])
-def test_sketch_records_wave_budget_edges(mode, monkeypatch):
-    """_LaunchWave edge cases: a budget smaller than one launch footprint
-    (every add flushes the previous single-launch wave) must stay
-    bit-identical to the unbounded-budget schedule."""
-    from simd_minimizers_tpu.ops import fused
-
-    k, w = 7, 5
-    h = NtHasher(k, canonical=True)
-    rng = np.random.default_rng(0xA3E)
-    recs = [rng.integers(0, 4, n, dtype=np.uint8)
-            for n in (5000, 33000, 900, 12000)]
-    want = fused.sketch_records(recs, k, w, h, mode=mode, C=1024,
-                                span_chars=12000, interpret=True)
-    monkeypatch.setenv("SMTPU_RECORDS_WAVE_BYTES", "1")
-    got = fused.sketch_records(recs, k, w, h, mode=mode, C=1024,
-                               span_chars=12000, interpret=True)
-    for g, wnt in zip(got, want):
-        if mode == pipeline.MODE_SUPERKMERS:
-            np.testing.assert_array_equal(g[0], wnt[0])
-            np.testing.assert_array_equal(g[1], wnt[1])
-        else:
-            np.testing.assert_array_equal(g, wnt)
-
-
-def test_large_w_span_batch_records_interplay():
-    """Large w (l - 1 > TAIL, the round-5 row-striped halo extension)
-    through every driver that slices or pads around l: sketch_long's
-    overlapping u32-offset spans (span overlap = l - 1 > 1024), the
-    batch engine's stride bucketing (reads barely >= l), and
-    sketch_records' mixed lengths — all vs the oracle."""
-    import numpy as np
-
-    from simd_minimizers_tpu.hashers import NtHasher
-    from simd_minimizers_tpu.ops import oracle
+def test_large_w_span_batch_records_interplay(monkeypatch):
+    """Large w (l - 1 longer than a lane row) through every driver that
+    slices or pads around l: chunk streaming's overlapping chunks (overlap
+    l - 1 = 1220), the batch engine's stride bucketing (reads barely
+    >= l), and sketch_records' mixed lengths — all vs the oracle."""
+    from simd_minimizers_tpu.ops import backend
     from simd_minimizers_tpu.ops.batch import sketch_batch
-    from simd_minimizers_tpu.ops.fused import sketch_long, sketch_records
 
     rng = np.random.default_rng(0x1A46)
     k, w = 21, 1200
@@ -352,24 +329,32 @@ def test_large_w_span_batch_records_interplay():
         return oracle.collect_and_dedup(
             oracle.selected_stream(codes, k, w, NtHasher(k)))
 
-    # spans: 3 overlapping spans, overlap l - 1 = 1220 > TAIL
     codes = rng.integers(0, 4, 3 * 20000, dtype=np.uint8)
-    got = sketch_long(codes, k, w, NtHasher(k), C=1024, span_chars=20000,
-                      interpret=True)
+    got = chunked.sketch(codes, k, w, NtHasher(k), chunk_windows=20000)
     np.testing.assert_array_equal(got, want(codes))
 
-    # batch: reads straddling one-window (len == l) through several blocks
     reads = [rng.integers(0, 4, int(m), dtype=np.uint8)
              for m in (l, l + 1, 3 * l, l - 1, 5000)]
-    rid, pos = sketch_batch(reads, k, w, NtHasher(k), C=1024, dna=True,
-                            interpret=True)
+    rid, pos = sketch_batch(reads, k, w, NtHasher(k))
     for i, rd in enumerate(reads):
         w_i = want(rd) if len(rd) >= l else np.zeros(0, np.uint32)
         np.testing.assert_array_equal(pos[rid == i], w_i, err_msg=f"read {i}")
 
-    # records: per-record spans with the large halo
+    monkeypatch.setattr(backend, "PIPELINE_CHUNK_WINDOWS", 21000)
     recs = [rng.integers(0, 4, m, dtype=np.uint8) for m in (25000, l, 40000)]
-    outs = sketch_records(recs, k, w, NtHasher(k), C=1024, interpret=True,
-                          span_chars=21000)
+    outs = backend.sketch_records(recs, k, w, NtHasher(k))
     for rec, o in zip(recs, outs):
         np.testing.assert_array_equal(o, want(rec))
+
+
+def _count_batches(monkeypatch, backend):
+    """Record the record count of every backend.sketch_batch call."""
+    calls = []
+    orig = backend.sketch_batch
+
+    def counting(records, *a, **kw):
+        calls.append(len(records))
+        return orig(records, *a, **kw)
+
+    monkeypatch.setattr(backend, "sketch_batch", counting)
+    return calls

@@ -21,7 +21,7 @@ def test_eval_tables_and_plot(tmp_path):
                 rows.append({"name": name, "k": k, "w": w,
                              "canonical": name.startswith("canonical"),
                              "ns_per_bp": 2.0 + 0.01 * w, "source": "carried-avx2"})
-    rows += [{"name": "smtpu-fused", "k": 19, "w": w, "canonical": True,
+    rows += [{"name": "smtpu-xla", "k": 19, "w": w, "canonical": True,
               "ns_per_bp": 0.22} for w in (1, 11, 49)]
     png = ev.render_plot(rows, str(tmp_path))
     assert os.path.exists(png) and os.path.getsize(png) > 10_000

@@ -10,7 +10,7 @@ the constraints its usage sites imply (SURVEY.md §2.2):
   depends only on its own k chars, so hashes of a slice equal the sliced
   hashes of the whole.
 - seeded hashers (new_with_seed, src/lib.rs:143-160): deterministic per
-  seed, different across seeds, and bit-identical across all backends.
+  seed, different across seeds, and bit-identical on oracle and pipeline.
 """
 
 import numpy as np
@@ -67,10 +67,8 @@ def test_seeded_hashers(hcls):
 
 @pytest.mark.parametrize("hcls", [NtHasher, MulHasher])
 def test_seeded_hashers_across_backends(hcls):
-    """Seeded tables produce identical results on oracle, XLA pipeline,
-    and the fused Pallas kernel (interpret mode)."""
-    from simd_minimizers_tpu.ops.fused import fused_sketch
-
+    """Seeded tables produce identical results on the oracle and the XLA
+    pipeline."""
     k, w = 11, 5
     codes = RNG.integers(0, 4, 5000, dtype=np.uint8)
     for seed in [7, 4242]:
@@ -78,8 +76,6 @@ def test_seeded_hashers_across_backends(hcls):
         want = oracle.collect_and_dedup(oracle.selected_stream(codes, k, w, h))
         got_xla = pipeline.run_pipeline(codes, k, w, h)
         np.testing.assert_array_equal(got_xla, want)
-        got_fused = fused_sketch(codes, k, w, h, C=1024, interpret=True)
-        np.testing.assert_array_equal(got_fused, want)
 
 
 def test_default_nt_table_documented_scheme():

@@ -125,9 +125,9 @@ def test_multihost_sketch_skip_ambiguous():
 @pytest.mark.parametrize("mode", ["minimizers", "superkmers",
                                   "closed_syncmers", "open_syncmers",
                                   "skip_ambiguous"])
-def test_fused_sharded_all_modes_on_mesh(mode):
-    """The fused Pallas kernel under shard_map (8-dev CPU mesh, interpret
-    mode) supports every reference mode (src/lib.rs:427-436, :475-482)."""
+def test_sharded_all_modes_on_mesh(mode):
+    """The sharded pipeline under shard_map (8-dev CPU mesh) supports every
+    reference mode (src/lib.rs:427-436, :475-482)."""
     from simd_minimizers_tpu.parallel import shard
 
     k, w = 11, 7
@@ -140,9 +140,8 @@ def test_fused_sharded_all_modes_on_mesh(mode):
     if mode == "skip_ambiguous":
         kernel_mode = "minimizers"
         amb = (RNG.random(n) < 0.005).astype(np.uint8)
-    got = shard.fused_sharded_sketch(codes, k, w, h, mode=kernel_mode,
-                                     ambiguous_np=amb, mesh=mesh, C=1024,
-                                     interpret=True)
+    got = shard.sharded_sketch(codes, k, w, h, mode=kernel_mode,
+                               ambiguous_np=amb, mesh=mesh)
     sel = oracle.selected_stream(codes, k, w, h, ambiguous=amb)
     if mode == "superkmers":
         want = oracle.collect_and_dedup_with_index(sel)
@@ -156,10 +155,9 @@ def test_fused_sharded_all_modes_on_mesh(mode):
         np.testing.assert_array_equal(got, want)
 
 
-def test_fused_sharded_with_empty_trailing_shards():
-    """nw < ndev: trailing devices get ZERO windows. Their kernel launches
-    must produce empty outputs (and, on hardware, must not leave the
-    block-0 input DMA pending — the start is gated on `active`)."""
+def test_sharded_with_empty_trailing_shards():
+    """nw < ndev: trailing devices get ZERO windows and must produce empty
+    outputs without breaking the seam chain."""
     from simd_minimizers_tpu.parallel import shard
 
     k, w = 5, 7
@@ -167,14 +165,12 @@ def test_fused_sharded_with_empty_trailing_shards():
     codes = RNG.integers(0, 4, l + 4, dtype=np.uint8)  # nw = 5 < 8 devices
     h = NtHasher(k, canonical=True)
     mesh = shard.default_mesh()
-    got = shard.fused_sharded_sketch(codes, k, w, h, mesh=mesh, C=1024,
-                                     interpret=True)
+    got = shard.sharded_sketch(codes, k, w, h, mesh=mesh)
     want = oracle.collect_and_dedup(oracle.selected_stream(codes, k, w, h))
     np.testing.assert_array_equal(got, want)
-    # superkmers: same geometry drives the two-plane (idx) append + the
-    # emit_idx dead-block absorb
-    gp, gi = shard.fused_sharded_sketch(codes, k, w, h, mesh=mesh, C=1024,
-                                        mode="superkmers", interpret=True)
+    # superkmers: the window-index plane through the same empty shards
+    gp, gi = shard.sharded_sketch(codes, k, w, h, mesh=mesh,
+                                  mode="superkmers")
     wp, wi = oracle.collect_and_dedup_with_index(
         oracle.selected_stream(codes, k, w, h))
     np.testing.assert_array_equal(gp, wp)
@@ -182,9 +178,9 @@ def test_fused_sharded_with_empty_trailing_shards():
 
 
 def test_seam_merge_with_trailing_skipped_run():
-    """Shard seams where the earlier side ends in SKIPPED windows: the
-    naive last-output comparison would wrongly dedup; the seam-aware
-    merge must match the oracle exactly."""
+    """Device seams where the earlier side ends in SKIPPED windows: the
+    naive last-output comparison would wrongly dedup; the ppermute seam
+    carries the raw last window value and must match the oracle exactly."""
     from simd_minimizers_tpu.ops import pipeline
     from simd_minimizers_tpu.parallel import shard
 
@@ -200,8 +196,8 @@ def test_seam_merge_with_trailing_skipped_run():
             amb[p] = 1
         h = NtHasher(k, canonical=True)
         mesh = shard.default_mesh(2)
-        got = shard.fused_sharded_sketch(codes, k, w, h, ambiguous_np=amb,
-                                         mesh=mesh, C=1024, interpret=True)
+        got = shard.sharded_sketch(codes, k, w, h, ambiguous_np=amb,
+                                   mesh=mesh)
         sel = oracle.selected_stream(codes, k, w, h, ambiguous=amb)
         want = oracle.collect_and_dedup(sel, skip_sentinel=True)
         np.testing.assert_array_equal(got, want, err_msg=f"trial {trial}")
@@ -263,11 +259,9 @@ def test_allgather_ragged_planes_lockstep(monkeypatch):
             [np.zeros(3, np.uint32), np.zeros(4, np.uint32)], 1)
 
 
-def test_fused_sharded_large_w_on_mesh():
-    """Large-w (l - 1 > TAIL) rides the fused sharded path too: the
-    sharded kernel packs row-striped 2-bit codes by contract, so the
-    ROWSTRIPED_MAX_HALO bound applies (the multihost gate passes
-    dna=True). 8-dev CPU mesh, interpret mode, vs the oracle."""
+def test_sharded_large_w_on_mesh():
+    """Large w (l - 1 longer than a lane row) on the sharded path: 8-dev
+    CPU mesh vs the oracle."""
     from simd_minimizers_tpu.parallel import shard
 
     k, w = 5, 1200
@@ -275,7 +269,6 @@ def test_fused_sharded_large_w_on_mesh():
     codes = RNG.integers(0, 4, n, dtype=np.uint8)
     h = NtHasher(k, canonical=False)
     mesh = shard.default_mesh()
-    got = shard.fused_sharded_sketch(codes, k, w, h, mesh=mesh, C=1024,
-                                     interpret=True)
+    got = shard.sharded_sketch(codes, k, w, h, mesh=mesh)
     sel = oracle.selected_stream(codes, k, w, h)
     np.testing.assert_array_equal(got, oracle.collect_and_dedup(sel))

@@ -58,56 +58,6 @@ def test_fasta_scan_and_read(tmp_path):
     np.testing.assert_array_equal(recs2[1].codes, recs[1].codes)
 
 
-def test_pack_rowstriped_multi_matches_per_span():
-    """The one-call sharded packer == per-span pack_rowstriped (both the
-    native and the NumPy fallback paths)."""
-    import numpy as np
-
-    from simd_minimizers_tpu import native
-    from simd_minimizers_tpu.ops import fused
-
-    rng = np.random.default_rng(0xABC)
-    codes = rng.integers(0, 4, 300000, dtype=np.uint8)
-    C, G = 1024, 4
-    PADH = fused.padh_for(31)
-    SP, SPW, SPW_PAD = fused.rowstriped_geometry(C, PADH)
-    BC = fused.RB * C
-    need = fused.rowstriped_need_chars(G, C, PADH)
-    starts = np.asarray([0, 90000, 299000, 150000], np.int64)
-    lens = np.asarray([need, 20000, 1000, 0], np.int64)
-    multi = native.pack_2bit_rowstriped_multi(
-        codes, starts, lens, G, BC, C, SP, SPW, SPW_PAD)
-    for d in range(4):
-        span = np.zeros(need, np.uint8)
-        span[: lens[d]] = codes[starts[d] : starts[d] + lens[d]]
-        single = fused.pack_rowstriped(span, G, C, PADH)
-        np.testing.assert_array_equal(multi[d], single, err_msg=f"dev {d}")
-
-
-def test_pack_rowstriped_multi_casts_wide_dtypes():
-    """Non-uint8 codes (e.g. a user-built int64 array) must value-cast,
-    matching the NumPy fallback — the byte-wise C++ packer would otherwise
-    read the raw 8-byte elements (round-3 review finding)."""
-    import numpy as np
-
-    from simd_minimizers_tpu import native
-    from simd_minimizers_tpu.ops import fused
-
-    rng = np.random.default_rng(0xCA57)
-    codes8 = rng.integers(0, 4, 40000, dtype=np.uint8)
-    C, G = 1024, 2
-    PADH = fused.padh_for(31)
-    SP, SPW, SPW_PAD = fused.rowstriped_geometry(C, PADH)
-    BC = fused.RB * C
-    starts = np.asarray([0, 15000], np.int64)
-    lens = np.asarray([30000, 25000], np.int64)
-    want = native.pack_2bit_rowstriped_multi(
-        codes8, starts, lens, G, BC, C, SP, SPW, SPW_PAD)
-    got = native.pack_2bit_rowstriped_multi(
-        codes8.astype(np.int64), starts, lens, G, BC, C, SP, SPW, SPW_PAD)
-    np.testing.assert_array_equal(got, want)
-
-
 def test_synth_fasta_width_multiple(tmp_path):
     """Records whose length is an exact multiple of the line width must
     keep their trailing newline so the next '>' starts a line (round-4

@@ -103,3 +103,83 @@ def test_seeded_hasher(base_seq):
     h2 = NtHasher(21, canonical=True, seed=7)
     got2 = pipeline.run_pipeline(codes, 21, 11, h2)
     assert got2.shape != got.shape or not np.array_equal(got2, got)
+
+
+def _want(codes, k, w, h, mode=pipeline.MODE_MINIMIZERS, ambiguous=None):
+    sel = oracle.selected_stream(codes, k, w, h, ambiguous=ambiguous)
+    if mode == pipeline.MODE_SUPERKMERS:
+        return oracle.collect_and_dedup_with_index(sel)
+    if mode in (pipeline.MODE_CLOSED_SYNCMERS, pipeline.MODE_OPEN_SYNCMERS):
+        return oracle.collect_syncmers(sel, w, mode == pipeline.MODE_OPEN_SYNCMERS)
+    return oracle.collect_and_dedup(sel, skip_sentinel=ambiguous is not None)
+
+
+@pytest.mark.parametrize("k,w,hcls,canonical,mode,amb_rate,n", [
+    (5, 7, NtHasher, False, pipeline.MODE_MINIMIZERS, 0, 20000),
+    (21, 11, NtHasher, False, pipeline.MODE_MINIMIZERS, 0, 20000),
+    (31, 5, NtHasher, False, pipeline.MODE_MINIMIZERS, 0, 20000),
+    (19, 19, NtHasher, False, pipeline.MODE_MINIMIZERS, 0, 20000),
+    (21, 11, NtHasher, True, pipeline.MODE_MINIMIZERS, 0, 20000),
+    (21, 11, MulHasher, True, pipeline.MODE_MINIMIZERS, 0, 20000),
+    (21, 11, AntiLexHasher, True, pipeline.MODE_MINIMIZERS, 0, 20000),
+    (5, 7, NtHasher, True, pipeline.MODE_SUPERKMERS, 0, 12000),
+    (11, 7, NtHasher, False, pipeline.MODE_CLOSED_SYNCMERS, 0, 12000),
+    (11, 7, NtHasher, False, pipeline.MODE_OPEN_SYNCMERS, 0, 12000),
+    (5, 7, NtHasher, True, pipeline.MODE_MINIMIZERS, 0.01, 12000),
+])
+def test_multirow_modes(k, w, hcls, canonical, mode, amb_rate, n):
+    """Every mode through backend.sketch on inputs spanning several lane
+    rows (row halos, multi-row compaction, power-of-two row bucketing)."""
+    from simd_minimizers_tpu.ops import backend
+
+    rng = np.random.default_rng(0xF0D + k * 31 + w)
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    amb = (rng.random(n) < amb_rate).astype(np.uint8) if amb_rate else None
+    h = hcls(k, canonical=canonical)
+    got = backend.sketch(codes, k, w, h, mode=mode, ambiguous_np=amb)
+    want = _want(codes, k, w, h, mode=mode, ambiguous=amb)
+    if mode == pipeline.MODE_SUPERKMERS:
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "kind,canonical,k,rot",
+    [
+        ("nt", True, 21, 0),
+        ("nt", False, 21, 0),
+        ("nt", True, 5, 0),
+        ("nt", True, 31, 7),
+        ("nt", True, 1, 3),
+        ("nt", True, 64, 13),
+        ("nt", False, 33, 31),
+        ("mul", True, 21, 0),
+        ("mul", False, 19, 5),
+        ("mul", True, 33, 11),
+        ("antilex", True, 9, 0),
+    ],
+)
+def test_windowed_hash_matches_oracle(kind, canonical, k, rot):
+    """The lane-matrix windowed hash (prefix-XOR of rotated table values,
+    rotated back by the k-mer's position) equals the oracle's per-k-mer
+    hash at every row and column, for every kind, strand, k and rotation
+    offset."""
+    import jax.numpy as jnp
+
+    from simd_minimizers_tpu.ops.layout import build_lane_matrix
+
+    rng = np.random.default_rng(k * 131 + rot)
+    h = {"nt": NtHasher, "mul": MulHasher, "antilex": AntiLexHasher}[kind](
+        k, canonical=canonical)
+    h.rot_offset = rot
+    R, C = 4, 256
+    S = C + k - 1 + 40  # a halo of at most one extra row block
+    flat = rng.integers(0, 4, (R + 1) * C, dtype=np.uint8)
+    M = build_lane_matrix(jnp.asarray(flat), R, C, S)
+    got = np.asarray(pipeline.kmer_hashes_2d(M, h, C))
+    want = h.hash_kmers_np(flat)
+    for r in range(R):
+        np.testing.assert_array_equal(got[r], want[r * C : r * C + S - k + 1],
+                                      err_msg=f"row {r}")
